@@ -1,14 +1,13 @@
 #!/usr/bin/env python
-"""Config-3 baseline measurement: single-core C++ mean-shift vs TPU.
+"""Config-3 baseline measurement: single-core C++ mean shift.
 
-Builds pcseg_tpu/native/cpp_baseline_meanshift.cc (the same
-voxelize + SlidingMeanShift algorithm as the TPU path, optimized
-single-threaded C++ — the measurement stand-in; the reference itself
-degenerates on unorganized clouds, see the .cc header), runs it on the
-same 1M-point blob cloud as benchmarks/measure_tpu.py, and records both
-sides in benchmarks/config3_baseline.json.
+Builds pcseg_tpu/native/cpp_baseline_meanshift.cc (the same voxelize +
+SlidingMeanShift algorithm as the device path, optimized single-threaded
+C++ — the measurement stand-in; the reference itself degenerates on
+unorganized clouds, see the .cc header), runs it on the ~1M-point blob
+cloud (utils/synthetic.synthetic_blob_cloud) and prints the result as JSON.
 
-CPU-only (reads the TPU ms from benchmarks/tpu_results.json).
+CPU-only. Run: python benchmarks/measure_config3.py
 """
 
 import json
@@ -16,63 +15,44 @@ import os
 import struct
 import subprocess
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT = os.path.join(ROOT, "benchmarks", "config3_baseline.json")
 
 
 def main():
+    from pcseg_tpu.utils.synthetic import synthetic_blob_cloud
     src = os.path.join(ROOT, "pcseg_tpu", "native",
                        "cpp_baseline_meanshift.cc")
-    exe = "/tmp/pcseg_cpp_meanshift"
-    subprocess.run(["g++", "-O3", "-march=native", "-std=c++17", "-o", exe,
-                    src], check=True, capture_output=True)
-
-    rng = np.random.default_rng(0)
-    big = np.concatenate([
-        c + rng.normal(0, 0.4, (250_000, 3)).astype(np.float32)
-        for c in np.array([[0, 0, 0], [30, 0, 0], [0, 35, 0], [40, 40, 0]],
-                          np.float32)])
-    data = "/tmp/pcseg_config3_cloud.bin"
-    with open(data, "wb") as f:
-        f.write(struct.pack("<i", len(big)))
-        f.write(big.astype(np.float32).tobytes())
-
+    big = synthetic_blob_cloud()
     best = None
     regions = None
-    for _ in range(3):
-        out = subprocess.run([exe, data], check=True, capture_output=True,
-                             text=True).stdout
-        rec = json.loads(out)
-        best = rec["total_ms"] if best is None else min(best,
-                                                        rec["total_ms"])
-        regions = rec["regions"]
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "cpp_meanshift")
+        data = os.path.join(tmp, "cloud.bin")
+        subprocess.run(["g++", "-O3", "-march=native", "-std=c++17", "-o",
+                        exe, src], check=True, capture_output=True)
+        with open(data, "wb") as f:
+            f.write(struct.pack("<i", len(big)))
+            f.write(big.astype(np.float32).tobytes())
+        for _ in range(3):
+            out = subprocess.run([exe, data], check=True,
+                                 capture_output=True, text=True).stdout
+            rec = json.loads(out)
+            best = rec["total_ms"] if best is None \
+                else min(best, rec["total_ms"])
+            regions = rec["regions"]
 
-    result = {
+    print(json.dumps({
         "n_points": len(big),
         "cpp_single_core_ms": round(best, 1),
         "cpp_points_per_sec": round(len(big) / (best / 1e3), 1),
         "cpp_regions": regions,
-    }
-    tpu_path = os.path.join(ROOT, "benchmarks", "tpu_results.json")
-    try:
-        with open(tpu_path) as f:
-            tpu = json.load(f)
-        result["tpu_ms"] = tpu.get("mean_shift_1m_ms")
-        result["tpu_points_per_sec"] = tpu.get("mean_shift_1m_points_per_sec")
-        result["tpu_regions"] = tpu.get("mean_shift_1m_regions")
-        if result.get("tpu_ms"):
-            result["tpu_vs_cpp"] = round(best / result["tpu_ms"], 3)
-    except Exception as e:  # noqa: BLE001
-        result["tpu_error"] = repr(e)
-
-    with open(OUT, "w") as f:
-        json.dump(result, f, indent=2)
-    print(json.dumps(result, indent=2))
+    }, indent=2))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""pcseg_tpu — TPU-native point-cloud geometric segmentation engine.
+"""pcseg_tpu — accelerator-native point-cloud geometric segmentation engine.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
+A from-scratch JAX/XLA reimplementation of the capabilities of
 ``theteamatx/x-edr-pointcloud-segmentation`` (organized-cloud normal
 estimation, incremental-PCA plane fitting, region-growing planar
 segmentation, euclidean/mean-shift clustering, geometric plane
@@ -12,7 +12,7 @@ Public API highlights:
   * pcseg_tpu.ops.normals.compute_normals_organized
   * pcseg_tpu.ops.plane_fit — mergeable plane-moment accumulators
   * pcseg_tpu.models.{planar,cluster,mean_shift,classify,extract}
-  * pcseg_tpu.parallel.sharded — pod-slice spatial sharding
+  * pcseg_tpu.parallel.sharded — multi-device spatial sharding
   * pcseg_tpu.oracle — sequential NumPy oracle of the reference semantics
 """
 

@@ -2,7 +2,7 @@
 
 The reference finalizes each planar region with a Moore boundary trace,
 convex hull, Stokes area, and geometric discontinuity detection
-(/root/reference/pointcloud_segmentation/planar_region.h:189-425 + .cc).
+(pointcloud_segmentation/planar_region.h:189-425 + .cc).
 These are ordering-dependent walks over *small* per-region sets — the
 natural host seam. The dense growth already happened on device
 (models/planar.py); this pass:

@@ -1,6 +1,6 @@
 """Geometric plane classification: floor / table / wall / unknown.
 
-Reimplements /root/reference/pointcloud_segmentation/plane_classification.cc:
+Reimplements pointcloud_segmentation/plane_classification.cc:
   * floor / coffee-table: near-horizontal normal (cosine gate), signed
     offset from a known floor point within deviation, area within
     [min, max] (:34-65);

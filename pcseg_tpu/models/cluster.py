@@ -1,6 +1,6 @@
 """Euclidean cluster segmentation (the reference's SegmentRegions<ClusterRegion>).
 
-TPU reformulation of /root/reference/pointcloud_segmentation/cluster_region.h
+Data-parallel reformulation of pointcloud_segmentation/cluster_region.h
 + the generic driver segmentation.h:239-292:
 
   * membership: gated connected components over the (2w+1)^2 window
@@ -73,11 +73,11 @@ def segment_clusters(points: jnp.ndarray,
         closure). Then a component's founding pop priority IS its root
         (min eligible col-major index), so the priority scatter, the
         per-component min-reduction, and the full-grid argsort are all
-        skipped — several ms/frame on TPU.
+        skipped.
       need_sizes: when False (stream serving path), ``region_sizes`` is
         returned as zeros and, when the configuration permits, acceptance
         is decided by an exact windowed same-root count instead of the
-        307k-segment scatter + top_k (several ms/frame on TPU): a gated
+        307k-segment scatter + top_k: a gated
         component has >= m members iff ANY member sees >= m same-root
         cells within Chebyshev radius w*(m-1) (BFS from a member gains
         >= 1 cell per ring until the component is exhausted, and the whole
@@ -93,8 +93,8 @@ def segment_clusters(points: jnp.ndarray,
     big = jnp.int32(hw)
     inf = jnp.int32(2**31 - 1)
 
-    # bit-level finite test: jnp.isfinite is folded away inside large
-    # fused TPU programs (see ops/nansafe.py)
+    # bit-level finite test: a compiler may fold jnp.isfinite away inside
+    # large fused programs (see ops/nansafe.py)
     finite = nansafe.all_finite(points)
     eligible = (labels == UNLABELED) & finite
 
@@ -156,8 +156,7 @@ def segment_clusters(points: jnp.ndarray,
         num_regions = jnp.sum(accepted.astype(jnp.int32))
         # region sizes table = sizes of the first max_regions accepted roots
         # in ascending root order: a top_k over a strictly-descending-in-root
-        # key (full-grid lax.sort was ~several ms/frame on TPU; top_k is a
-        # partial selection)
+        # key (top_k is a partial selection; a full-grid lax.sort is not)
         key = jnp.where(accepted, big - jnp.arange(hw, dtype=jnp.int32),
                         jnp.int32(0))
         # grids smaller than max_regions: top_k requires k <= size

@@ -12,7 +12,7 @@ in-code ApplyDefaultConfigValues:
   * MeanShiftParams       <- hard-coded constexprs
       (mean_shift_segmentation.h:31-51)
 
-Extra TPU-specific knobs (capacities, scan bounds) are grouped separately in
+Extra device-specific knobs (capacities, scan bounds) are grouped separately in
 each dataclass and documented; they bound on-device shapes (XLA needs static
 shapes) and do not change semantics when large enough.
 """
@@ -44,7 +44,7 @@ class ComputeNormalsParams:
     include_diagonal_neighbors: bool = True
     min_num_support_neighbors: int = 4
 
-    # TPU-only: static bound on the variable-radius directional walk
+    # Device-only: static bound on the variable-radius directional walk
     # (algorithms.h:136-199 walks until the grid edge; a bounded scan of
     # max_scan_steps covers the reference's reach on real sensor data).
     # The worst-case reach is ~f * min_neighbor_distance / min_range: at
@@ -52,7 +52,7 @@ class ComputeNormalsParams:
     # gives EXACT normal agreement with the unbounded oracle walk on the
     # 560x560 room scene (K=16 left 0.8% of pixels without supports and
     # 3.8% with degraded fits, all at the near floor); the extra steps are
-    # nearly free on TPU (the scan is elementwise shift arithmetic).
+    # cheap (the scan is elementwise shift arithmetic).
     max_scan_steps: int = 64
 
 
@@ -75,14 +75,14 @@ class PlanarRegionConfig:
     max_distance_for_seed_point: float = 0.0
     max_normal_difference_angle_for_seed_point: float = 0.0
 
-    # TPU-only static bounds. 32 slots cover real frames by a wide margin
+    # Device-only static bounds. 32 slots cover real frames by a wide margin
     # (room scenes produce <= ~10 planar regions; the overflow flag reports
     # exhaustion) and halve the batched grower's per-epoch HBM traffic —
     # measured 560x560 oracle agreement is unchanged vs 64 slots.
     max_regions: int = 32          # capacity of the per-frame region table
     max_growth_iters: int = 4096   # bound on BFS wavefronts per region
 
-    # TPU-only growth strategy. "batched" (default) = all regions grown
+    # Device-only growth strategy. "batched" (default) = all regions grown
     # concurrently with rank conflict resolution, statically unrolled
     # (models/planar_batched.py). "wavefront" = ring-by-ring BFS (closest to
     # the reference's queue cadence). "hybrid" = wavefront until
@@ -105,11 +105,11 @@ class ClusterRegionConfig:
     half_search_window: int = 1
     cluster_method: ClusterMethod = ClusterMethod.NEAREST_NEIGHBOR_DEFAULT
 
-    # TPU-only static bounds.
+    # Device-only static bounds.
     max_regions: int = 128
     max_growth_iters: int = 4096
 
-    # TPU-only CCL strategy: "scan" = statically-unrolled segmented-scan
+    # Device-only CCL strategy: "scan" = statically-unrolled segmented-scan
     # min-propagation (no data-dependent loops; scan_rounds bounds the
     # rounds); "while" = fixed-point min-propagation + pointer jumping.
     ccl_mode: str = "scan"
@@ -173,7 +173,7 @@ class SeedsFromPlaneSupportParams:
     neighborhood_size: int = 9
     max_plane_distance: float = 0.05
     min_num_support_points: int = 12
-    # TPU-only: capacity of the returned ranked seed list.
+    # Device-only: capacity of the returned ranked seed list.
     max_seeds: int = 8192
 
 

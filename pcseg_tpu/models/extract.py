@@ -1,26 +1,31 @@
 """Detected-object extraction: regions -> dataclasses -> protos.
 
-Reimplements /root/reference/pointcloud_segmentation/detected_objects.{h,cc}:
+Reimplements pointcloud_segmentation/detected_objects.{h,cc}:
 Plane3dProto round trip (detected_objects.h:37-59), cluster extraction
 (detected_objects.h:62-74), planar extraction with re-indexed discontinuous
 boundary indices (detected_objects.cc:21-48).
 
 Ordering note: the reference gathers inlier points in BFS discovery order;
-the TPU path normalizes inlier order to ascending col-major linear index
+the device path normalizes inlier order to ascending col-major linear index
 (the point *set*, centroid, and plane are identical).
+
+Protobuf is imported only by the proto conversions, so the segmentation
+path runs where the protobuf package is not installed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 import numpy as np
 
 from pcseg_tpu.models.cluster import gather_region_indices
 from pcseg_tpu.models.classify import plane_class_name
 from pcseg_tpu.models.config import SEMANTIC_UNKNOWN
-from pcseg_tpu.protos import pcseg_pb2
+
+if TYPE_CHECKING:
+    from pcseg_tpu.protos import pcseg_pb2
 
 
 @dataclasses.dataclass
@@ -117,6 +122,7 @@ def to_proto(obj: DetectedObject,
              proto: Optional[pcseg_pb2.DetectedObjectProto] = None
              ) -> pcseg_pb2.DetectedObjectProto:
     if proto is None:
+        from pcseg_tpu.protos import pcseg_pb2
         proto = pcseg_pb2.DetectedObjectProto()
     proto.object_class = obj.object_class
     flat = np.asarray(obj.points, np.float32).reshape(-1)
@@ -137,6 +143,7 @@ def to_proto(obj: DetectedObject,
 
 def detected_objects_proto(objects: List[DetectedObject]
                            ) -> pcseg_pb2.DetectedObjectsProto:
+    from pcseg_tpu.protos import pcseg_pb2
     out = pcseg_pb2.DetectedObjectsProto()
     for obj in objects:
         to_proto(obj, out.detected_objects.add())

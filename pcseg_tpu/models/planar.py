@@ -1,7 +1,7 @@
 """Planar region growing — sequential-seed wavefront BFS on device.
 
-TPU reformulation of SegmentRegions<PlanarRegion>
-(/root/reference/pointcloud_segmentation/segmentation.h:239-292 +
+Data-parallel reformulation of SegmentRegions<PlanarRegion>
+(pointcloud_segmentation/segmentation.h:239-292 +
 planar_region.h:89-465):
 
   * Seeds are consumed in the reference's pop order (back of the vector
@@ -126,7 +126,7 @@ def grow_planar_regions(points: jnp.ndarray,
         member0 = jnp.zeros((h, w), bool)
 
         # finite mask is explicit and bit-level: NaN `dist < tau` is
-        # not a trustworthy exclusion on this TPU stack (ops/nansafe.py)
+        # not a trustworthy exclusion inside fused programs (ops/nansafe.py)
         eligible = (labels_in == UNLABELED) & nansafe.all_finite(points)
 
         def cond(state):

@@ -5,7 +5,7 @@
 // unorganized clouds as 1-row grids (multichannel_cloud.proto:39-40),
 // where the 11x11 index window of SlidingMeanShift degenerates to a
 // 1x11 linear strip. This program therefore implements the SAME
-// algorithm as pcseg_tpu's TPU path (voxelize to an XY cell-centroid
+// algorithm as pcseg_tpu's device path (voxelize to an XY cell-centroid
 // grid, SlidingMeanShift over the organized cell grid with the
 // reference's constants from mean_shift_segmentation.h:31-51, FIFO mode
 // growth + suppression per :262-328, labels scattered back to points) in

@@ -1,15 +1,15 @@
-"""Gated connected-component labeling on dense grids — the TPU replacement
-for the reference's FIFO region-growing of euclidean clusters.
+"""Gated connected-component labeling on dense grids — the data-parallel
+replacement for the reference's FIFO region-growing of euclidean clusters.
 
 The reference grows clusters by sequential BFS with a per-step distance gate
-(/root/reference/pointcloud_segmentation/cluster_region.h:85-150): candidate
+(pointcloud_segmentation/cluster_region.h:85-150): candidate
 ``c`` enqueued by source ``s`` joins iff ``||p_c - p_s||^2 < tau``. The
 accepted membership equals the *closure* of the gated-adjacency graph: all
 points reachable from the seed through window edges shorter than tau
 (verified exactly against the reference's golden 10x10 fixture,
 clustering_test.cc:127-151).
 
-TPU formulation: iterated **min-label propagation** over the gated window
+Device formulation: iterated **min-label propagation** over the gated window
 graph with **pointer jumping** (path compression) — converges in
 O(log diameter) rounds instead of O(diameter) wavefronts. All components
 are labeled simultaneously; seed priority and size filtering happen in a
@@ -154,8 +154,8 @@ def connected_components_mask(mask, max_iters=64, num_jumps=2,
 
 def _shift_axis(x, d, axis, fill):
     """out[..., j, ...] = x[..., j - d, ...] along ``axis`` (static d; out of
-    range -> fill). One pad + one slice — the cheapest shift HLOs for both
-    the TPU and CPU backends (no strided slicing, no scatter)."""
+    range -> fill). One pad + one slice — no strided slicing, no scatter,
+    and XLA fuses it into the consumer."""
     if d == 0:
         return x
     axis = axis % x.ndim
@@ -203,8 +203,9 @@ def _segmented_or_spread(reach, gate, axis):
     """OR-spread ``reach`` within maximal runs of ``gate`` along ``axis``.
 
     Forward + backward segmented scans — propagates through an entire run
-    in one vectorized pass. TPU: Hillis-Steele shift doubling (pad/slice
-    friendly); CPU: associative_scan (compiles much faster there)."""
+    in one vectorized pass. GPU: Hillis-Steele shift doubling (log2(n)
+    fused elementwise passes); CPU: associative_scan (compiles much faster
+    there)."""
     v = reach & gate
     reset = ~gate
     if jax.default_backend() == "cpu":
@@ -255,7 +256,7 @@ def _segmented_min_scan(labels, edge_ok, axis, big):
     """Min-label spread within runs whose consecutive-cell edges pass
     ``edge_ok`` (edge_ok[c] gates the edge between c-1 and c along axis).
 
-    Forward+backward segmented scans — whole runs unify per pass. TPU:
+    Forward+backward segmented scans — whole runs unify per pass. GPU:
     Hillis-Steele shift doubling; CPU: associative_scan (compiles much
     faster there)."""
     reset = ~edge_ok
@@ -279,130 +280,7 @@ def _segmented_min_scan(labels, edge_ok, axis, big):
     return jnp.minimum(fwd, bwd)
 
 
-def _gate_bits(points, eligible, squared_threshold, offsets):
-    """Packed per-pixel gate word: bit o set iff the window edge to
-    ``offsets[o]`` passes the distance gate (both endpoints eligible,
-    ||p - q||^2 < tau). len(offsets) <= 32."""
-    gate = jnp.zeros(points.shape[:2], jnp.int32)
-    for o, (dr, dc) in enumerate(offsets):
-        np_shift = _shift2(points, dr, dc, jnp.nan)
-        d2 = jnp.sum(jnp.square(np_shift - points), axis=-1)
-        ok = (d2 < squared_threshold) & eligible \
-            & _shift2(eligible, dr, dc, False)
-        gate = gate | (ok.astype(jnp.int32) << o)
-    return gate
-
-
-def _ccl_pallas(gate, labels0, offsets, rounds, big_py, interpret=False):
-    """In-VMEM gated CCL kernel: the label grid ([H, W] int32, 1.25 MB at
-    VGA) and the packed gate word stay VMEM-resident across every
-    min-propagation round — HBM traffic is one read + one write instead of
-    O(rounds * offsets) full-grid passes (the XLA formulation of
-    connected_components_scan was measured ~30x off the HBM roofline).
-    Same fixed point as connected_components_scan (tested equal)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    import numpy as np
-
-    h, w = gate.shape
-    big = np.int32(big_py)
-    # offset index of the row/col sweep edges
-    o_row = offsets.index((0, -1))
-    o_col = offsets.index((-1, 0))
-
-    def shift(x, dr, dc, fill):
-        pad = [(max(0, dr), max(0, -dr)), (max(0, dc), max(0, -dc))]
-        sl = (slice(max(0, -dr), h + max(0, -dr)),
-              slice(max(0, -dc), w + max(0, -dc)))
-        if dr == 0 and dc == 0:
-            return x
-        return jnp.pad(x, pad, constant_values=fill)[sl]
-
-    def seg_min(v, blocked, axis, reverse):
-        b = blocked
-        d = 1
-        n = v.shape[axis]
-        while d < n:
-            s = -d if reverse else d
-            vs = shift(v, s, 0, big) if axis == 0 \
-                else shift(v, 0, s, big)
-            bs = shift(b, s, 0, np.int32(1)) if axis == 0 \
-                else shift(b, 0, s, np.int32(1))
-            v = jnp.where(b == 1, v, jnp.minimum(v, vs))
-            b = b | bs
-            d *= 2
-        return v
-
-    def kernel(g_ref, l_ref, o_ref):
-        g = g_ref[:]
-        # run resets for the row/col sweeps (1 = edge severed)
-        row_reset = 1 - ((g >> o_row) & 1)
-        col_reset = 1 - ((g >> o_col) & 1)
-        # kernel shift gathers from behind (out[j] = x[j - d]); the XLA
-        # path's _shift2 gathers from ahead — note the sign flips below
-        row_reset_rev = shift(row_reset, 0, -1, np.int32(1))
-        col_reset_rev = shift(col_reset, -1, 0, np.int32(1))
-
-        def one_round(lab):
-            fwd = seg_min(lab, row_reset, 1, False)
-            bwd = seg_min(lab, row_reset_rev, 1, True)
-            lab = jnp.minimum(fwd, bwd)
-            fwd = seg_min(lab, col_reset, 0, False)
-            bwd = seg_min(lab, col_reset_rev, 0, True)
-            lab = jnp.minimum(fwd, bwd)
-            for o, (dr, dc) in enumerate(offsets):
-                nb = shift(lab, -dr, -dc, big)   # = lab[r + dr, c + dc]
-                ok = (g >> o) & 1
-                lab = jnp.minimum(lab, jnp.where(ok == 1, nb, big))
-            return lab
-
-        def cond(st):
-            lab, prev, it = st
-            return jnp.logical_and(it < rounds, jnp.any(lab != prev))
-
-        def body(st):
-            lab, _, it = st
-            return one_round(lab), lab, it + 1
-
-        l0 = l_ref[:]
-        first = one_round(l0)
-        lab, _, _ = jax.lax.while_loop(cond, body, (first, l0, jnp.int32(1)))
-        o_ref[:] = lab
-
-    spec = pl.BlockSpec((h, w), lambda: (0, 0),
-                        memory_space=(pl.ANY if interpret else pltpu.VMEM))
-    kwargs = {}
-    if not interpret:
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024)
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((h, w), jnp.int32),
-        in_specs=[spec] * 2,
-        out_specs=spec,
-        interpret=interpret,
-        **kwargs,
-    )(gate, labels0)
-
-
-# CCL implementation switch: "pallas" (in-VMEM kernel, TPU), "xla"
-# (while_loop over HBM-resident scans — CPU tests, fallback), "auto".
-# Overridable via env (PCSEG_CCL_IMPL); tests may assign the global directly.
-import os as _os
-
-CCL_IMPL = _os.environ.get("PCSEG_CCL_IMPL", "auto")
-
-
-def _use_pallas_ccl(n_offsets):
-    if n_offsets > 32:
-        return False
-    if CCL_IMPL == "pallas":
-        return True
-    if CCL_IMPL == "xla":
-        return False
-    return jax.default_backend() == "tpu"
-
-
+@jax.named_scope("ccl")
 def connected_components_scan(points, eligible, squared_threshold,
                               half_window, rounds=24,
                               init_labels=None, big_value=None):
@@ -431,11 +309,6 @@ def connected_components_scan(points, eligible, squared_threshold,
     if init_labels is None:
         init_labels = colmajor_index_grid(h, w)
     labels0 = jnp.where(eligible, init_labels, big)
-
-    if _use_pallas_ccl(len(offsets)):
-        gate = _gate_bits(points, eligible, squared_threshold, offsets)
-        out = _ccl_pallas(gate, labels0, offsets, rounds, big_py)
-        return jnp.where(eligible, out, big)
 
     gates = []
     for dr, dc in offsets:

@@ -1,6 +1,6 @@
 """Core batched geometry: symmetric 3x3 eigensolver, planes, SE(3) poses.
 
-TPU-native reimplementation of the reference library's L0 math dependencies
+Array-native reimplementation of the reference library's L0 math dependencies
 (eigenmath Pose3/Plane3, Eigen SelfAdjointEigenSolver::computeDirect).
 
 All functions are pure jnp, batched over arbitrary leading axes, f32 by
@@ -10,7 +10,7 @@ Reference parity notes:
   * Planes follow the Eigen ``Hyperplane`` convention used throughout the
     reference: ``coeffs = (normal, offset)`` with ``offset = -normal . point``
     so ``signed_distance(x) = normal . x + offset``
-    (see /root/reference/pointcloud_segmentation/plane_estimator.cc:52,210).
+    (see pointcloud_segmentation/plane_estimator.cc:52,210).
   * ``eigh3x3_smallest`` replicates the semantics of Eigen's closed-form
     ``computeDirect`` (shift/scale + trigonometric roots + cross-product
     kernel extraction) used by the reference plane estimator
@@ -34,7 +34,7 @@ FLT_MIN = 1.1754944e-38
 
 def _roots_of_depressed_characteristic_c(m00, m01, m02, m11, m12, m22):
     """Eigenvalues (ascending, as a 3-tuple of [...] arrays) of a symmetric
-    3x3 batch given as scalar component grids — the TPU-friendly layout
+    3x3 batch given as scalar component grids — the component-grid layout
     (every array tiles as a plain [...] grid; no [..., 3, 3] trailing dims).
     Mirrors the structure of Eigen's ``computeRoots`` on the already
     shifted/scaled matrix."""
@@ -67,8 +67,8 @@ def _roots_of_depressed_characteristic_c(m00, m01, m02, m11, m12, m22):
 
 def eigh3x3_smallest_c(c00, c01, c02, c11, c12, c22, prev_normal=None):
     """Component-grid form of :func:`eigh3x3_smallest` — the production
-    path. Every input/intermediate is a plain [...] array (perfect TPU
-    tiling, no gathers, pure fusable elementwise ops); the f32 arithmetic
+    path. Every input/intermediate is a plain [...] array (no gathers,
+    pure fusable elementwise ops); the f32 arithmetic
     and op order are identical to the matrix form, so the computeDirect
     knife-edge parity (plane_estimator.cc:202-207) carries over.
 
@@ -333,7 +333,7 @@ def matrix_to_quat(m):
 class Pose:
     """Lightweight SE(3) pose pytree: rotation quaternion (wxyz) + translation.
 
-    Replaces eigenmath::Pose3d/Pose3f for the TPU rebuild. Static methods keep
+    Replaces eigenmath::Pose3d/Pose3f on device. Static methods keep
     it a plain (quat, trans) tuple-of-arrays friendly to jit.
     """
 

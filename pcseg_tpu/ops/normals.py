@@ -1,21 +1,21 @@
-"""Organized-cloud normal estimation — dense TPU reformulation.
+"""Organized-cloud normal estimation — dense data-parallel reformulation.
 
 The reference computes a normal per pixel by walking outward along the four
 grid axes until a neighbor lands in a [min, max] euclidean distance band,
 optionally adding 4 diagonal neighbors, then fitting a plane through the
 supports with the incremental-PCA estimator and orienting it toward the
-sensor (/root/reference/pointcloud_segmentation/algorithms.h:106-257,330-375).
+sensor (pointcloud_segmentation/algorithms.h:106-257,330-375).
 
-TPU design: the data-dependent walk becomes a **bounded directional scan** —
-for each of the 4 directions we examine offsets k = 1..K (static K =
-``params.max_scan_steps``) and select the first offset whose point is finite
-and whose distance from the center is inside the band. This is exact parity
-with the reference whenever the walk terminates within K steps (on real depth
-data with max_neighbor_distance 1 m it terminates within a few pixels; K=16
-is generous). The per-pixel 9-point plane fit is a batched closed-form
+Device design: the data-dependent walk becomes a **bounded directional
+scan** — for each of the 4 directions we examine offsets k = 1..K (static
+K = ``params.max_scan_steps``) and select the first offset whose point is
+finite and whose distance from the center is inside the band. This is
+exact parity with the reference whenever the walk terminates within K steps
+(on real depth data with max_neighbor_distance 1 m it terminates within a
+few pixels; K=16 is generous). The per-pixel 9-point plane fit is a batched closed-form
 eigensolve over all H*W pixels at once.
 
-Performance notes (measured on TPU v5e, 480x640):
+Layout notes:
   * moments accumulate INTO ten scalar [H, W] grids as each support is
     found — no [H, W, S, 3] support stack is ever materialized;
   * shifts are pad+slice (the cheapest shift HLOs);
@@ -42,7 +42,7 @@ def _shift(arr, dr, dc, fill):
     """Shift [H, W, ...] by (dr, dc), filling vacated cells with ``fill``.
 
     shifted[r, c] = arr[r - dr, c - dc] where in bounds. One pad + one
-    slice per axis — the cheapest shift HLOs on TPU (no scatter).
+    slice per axis — no scatter, fused by XLA into the consumer.
     """
     h, w = arr.shape[0], arr.shape[1]
     if abs(dr) >= h or abs(dc) >= w:
@@ -68,7 +68,7 @@ def _shift(arr, dr, dc, fill):
 
 class _Moments10(NamedTuple):
     """Ten scalar moment accumulator grids (xx, xy, xz, yy, yz, zz, x, y,
-    z, w) — the estimator state in TPU-native layout."""
+    z, w) — the estimator state in component-grid layout."""
     xx: jnp.ndarray
     xy: jnp.ndarray
     xz: jnp.ndarray
@@ -122,11 +122,10 @@ def _scan_direction(padded, padded_ok, center, dr, dc, k_max, min_d2,
     min_d2 <= ||p - center||^2 <= max_d2.
 
     ``padded`` is the NaN-padded cloud. The k loop is a ``fori_loop`` over
-    one dynamic_slice per step — on-device loop iterations are nearly free
-    on TPU and keep the XLA:CPU compile linear in 1, not k_max (a
-    statically unrolled K=16 chain was tried and sent CPU compiles of the
-    composed pipeline programs to ~10 minutes — the known XLA:CPU
-    pad/slice-chain pathology, CLAUDE.md).
+    one dynamic_slice per step — the loop keeps the XLA:CPU compile linear
+    in 1, not k_max (a statically unrolled K=16 chain sent CPU compiles of
+    the composed pipeline programs to ~10 minutes — the XLA:CPU
+    pad/slice-chain pathology).
     """
     h, w = center.shape[0], center.shape[1]
     pk = (padded.shape[0] - h) // 2
@@ -139,7 +138,7 @@ def _scan_direction(padded, padded_ok, center, dr, dc, k_max, min_d2,
             padded_ok, (pk + dr * k, pk + dc * k), (h, w))
         d2 = jnp.sum(jnp.square(p - center), axis=-1)
         # validity is an explicit boolean AND — `NaN compare false` is not
-        # reliable inside large fused TPU programs (ops/nansafe.py)
+        # reliable inside large fused programs (ops/nansafe.py)
         ok = p_ok & (d2 >= min_d2) & (d2 <= max_d2)
         take = ok & ~found
         found = found | take
@@ -230,12 +229,9 @@ def find_normal_support(points: jnp.ndarray,
         ]
         # One combined gather for all four diagonal supports.
         lin = jnp.stack([r * w + c for _, r, c in diag_sel])  # [4, H, W]
-        # One combined [4*HW] gather. Alternative formulations were measured
-        # slower IN CONTEXT on the chip (per-component jnp.take from [HW]
-        # planes: 529 vs 381 ms/batch at VGA; optimization barriers around
-        # the gather did not help) even though the per-component form is
-        # 4.4x faster in isolation — the batched-gather lowering under vmap
-        # dominates either way.
+        # One combined [4*HW] gather rather than one jnp.take per component
+        # plane: under vmap the batched-gather lowering dominates either
+        # way, so fewer gathers win in context.
         flat = points.reshape(-1, 3)
         diag_pts = flat[lin.reshape(-1)].reshape(4, h, w, 3)
         diag_ok = center_valid.reshape(-1)[lin.reshape(-1)].reshape(4, h, w)

@@ -2,7 +2,7 @@
 
 The reference keeps a running plane fit in 10 scalars: six second moments
 (upper-triangular sum of x_i x_j), a 3-vector centroid sum, and a weight sum
-(/root/reference/pointcloud_segmentation/plane_estimator.h:112-119). Merging
+(pointcloud_segmentation/plane_estimator.h:112-119). Merging
 two estimators is accumulator addition (plane_estimator.cc:128-133) and
 transforming to a new frame conjugates the covariance by the rotation
 (plane_estimator.cc:142-182). The plane itself is the eigenvector of the
@@ -102,7 +102,7 @@ def set_normal_orientation(m: PlaneMoments, hint) -> PlaneMoments:
 def _covariance_c(m: PlaneMoments):
     """Mean-centered covariance components and centroid from the
     accumulators (mirrors plane_estimator.cc:187-199). Component-grid form
-    — the TPU-friendly layout used by the production solve path."""
+    — the layout used by the production solve path."""
     w_safe = jnp.where(m.w > 0, m.w, 1.0)
     centroid = m.s1 / w_safe[..., None]
     accu = m.s2 / w_safe[..., None]
@@ -180,7 +180,9 @@ def transform(m: PlaneMoments, pose: geom.Pose) -> PlaneMoments:
     """
     cov, centroid = _covariance(m)
     rot = pose.rotation_matrix()
-    cov_t = rot @ cov @ jnp.swapaxes(rot, -1, -2)
+    hi = jax.lax.Precision.HIGHEST
+    cov_t = jnp.matmul(jnp.matmul(rot, cov, precision=hi),
+                       jnp.swapaxes(rot, -1, -2), precision=hi)
     new_centroid = pose.apply(centroid)
     cx, cy, cz = new_centroid[..., 0], new_centroid[..., 1], new_centroid[..., 2]
     s2 = jnp.stack([

@@ -1,9 +1,9 @@
 """Point-cloud registration: nearest neighbors, Kabsch, ICP.
 
-TPU-native reimplementation of the registration toolbox in
-/root/reference/pointcloud_segmentation/algorithms.h:
+Data-parallel reimplementation of the registration toolbox in
+pointcloud_segmentation/algorithms.h:
   * NearestNeighbors (:612-631) — the reference's O(N*M) brute force
-    becomes a single distance matrix whose cross term is an MXU matmul.
+    becomes a single distance matrix whose cross term is one matmul.
   * ComputeRigidTransform (:554-607) — Kabsch via SVD of the 3x3 cross
     covariance with the det(R) = -1 mirror correction.
   * IterativeClosestPoint (:637-684) — bounded iteration with the same
@@ -20,12 +20,18 @@ import jax.numpy as jnp
 from pcseg_tpu.ops import geom
 
 
+def _mm(a, b):
+    """Full-f32 matmul: without a precision, float32 contractions may run
+    as TF32 on tensor-core GPUs (10-bit mantissa)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def nearest_neighbors(source: jnp.ndarray, dest: jnp.ndarray,
                       tile: Optional[int] = None) -> jnp.ndarray:
     """Index into ``dest`` of the closest point for each source point.
 
     source: [N, 3], dest: [M, 3] -> [N] int32. The -2 s.d^T cross term is a
-    [N,3]x[3,M] matmul (MXU); squared norms are rank-1 corrections.
+    [N,3]x[3,M] matmul; squared norms are rank-1 corrections.
     ``tile`` bounds the distance-matrix working set for large N.
     """
     # accumulate in at least f32 without truncating f64 inputs
@@ -56,7 +62,7 @@ class RigidTransform(NamedTuple):
     translation: jnp.ndarray  # [3]
 
     def apply(self, points):
-        return points @ self.rotation.T + self.translation
+        return _mm(points, self.rotation.T) + self.translation
 
 
 def compute_rigid_transform(source: jnp.ndarray, dest: jnp.ndarray,
@@ -82,8 +88,8 @@ def compute_rigid_transform(source: jnp.ndarray, dest: jnp.ndarray,
     det = jnp.linalg.det(u) * jnp.linalg.det(v)
     sign = jnp.stack([jnp.ones_like(det), jnp.ones_like(det), det])
     # R = V S U^T with S = diag(1, 1, det) (mirror correction, :593-601)
-    r = (v * sign[None, :]) @ u.T
-    t = c_d - r @ c_s
+    r = _mm(v * sign[None, :], u.T)
+    t = c_d - _mm(r, c_s)
     return RigidTransform(rotation=r, translation=t)
 
 
@@ -112,8 +118,8 @@ def iterative_closest_point(source: jnp.ndarray, dest: jnp.ndarray,
         step = compute_rigid_transform(transformed, matched)
         new_transformed = step.apply(transformed)
         err = jnp.mean(jnp.linalg.norm(new_transformed - matched, axis=-1))
-        new_r = step.rotation @ acc_r
-        new_t = step.rotation @ acc_t + step.translation
+        new_r = _mm(step.rotation, acc_r)
+        new_t = _mm(step.rotation, acc_t) + step.translation
         done = jnp.abs(prev_err - err) < tolerance
         return (new_transformed, new_r, new_t, err, err, it + 1, done)
 

@@ -1,7 +1,7 @@
-"""Seed-point finders for planar region growing — dense TPU reformulations.
+"""Seed-point finders for planar region growing — dense reformulations.
 
 Replaces the two finders of
-/root/reference/pointcloud_segmentation/segmentation.h:
+pointcloud_segmentation/segmentation.h:
   * FindSeedPointsFromAverageNormals (:136-184) — sliding-window average
     normal length as a local planarity score; here a pair of separable box
     filters over the whole grid at once.
@@ -178,7 +178,7 @@ def plane_support_counts(points, normals, params):
         for dc in range(-half, half + 1):
             q = _shift(points, -dr, -dc, jnp.nan)  # q[a,b] = points[a+dr, b+dc]
             # explicit neighbor-validity AND: NaN `dist < tau` is not a
-            # trustworthy exclusion on this TPU stack (ops/nansafe.py)
+            # trustworthy exclusion inside fused programs (ops/nansafe.py)
             q_ok = _shift(finite_pts, -dr, -dc, False)
             dist = jnp.abs(jnp.sum(normals * q, axis=-1) + d)
             count = count + ((dist < params.max_plane_distance)
@@ -232,9 +232,9 @@ def plane_support_rank_grid(count, qualifies, h, w, cmax):
     hw = h * w
     rank = (cmax - count) * hw + (hw - 1 - lin_idx)
     vals = jnp.where(qualifies, rank, SEED_RANK_INF)
-    # The scatter this used to do has a closed form (several ms/frame on
-    # TPU saved). NATURAL orientation (count shaped [h, w]): position
-    # (r, c) lands back at (r, c) — the identity. TRANSPOSED-parity
+    # The scatter this used to do has a closed form. NATURAL orientation
+    # (count shaped [h, w]): position (r, c) lands back at (r, c) — the
+    # identity. TRANSPOSED-parity
     # orientation (count shaped [w, h], the reference's quirk): position
     # (a, b) emits col-major index b*h + a, so natural cell (r, c)
     # receives contributions from (a, b) = (r + k*h, c - k) for every
@@ -308,7 +308,7 @@ def seeds_from_last_regions(points, normals, prev_centroids, prev_normals,
 
     flat_p = points.reshape(-1, 3)
     flat_n = normals.reshape(-1, 3)
-    # [R, HW] squared distances; cross term on the MXU
+    # [R, HW] squared distances; cross term as one matmul
     cross = jnp.dot(c_cur, flat_p.T, preferred_element_type=jnp.float32,
                     precision=jax.lax.Precision.HIGHEST)
     d2 = (jnp.sum(c_cur * c_cur, axis=-1, keepdims=True)

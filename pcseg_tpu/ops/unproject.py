@@ -2,8 +2,8 @@
 
 The reference consumes clouds that some upstream robot pipeline already
 unprojected into `MultichannelCloudProto` repeated-float fields
-(/root/reference/pointcloud_segmentation/multichannel_cloud.proto:33-38) —
-12 bytes/pixel on the wire. A TPU-native serving deployment should ship the
+(pointcloud_segmentation/multichannel_cloud.proto:33-38) —
+12 bytes/pixel on the wire. An accelerator serving deployment should ship the
 sensor's native payload instead (u16 depth, 2 bytes/pixel, 6x less
 host->device traffic) and unproject on device against a precomputed ray
 table: one multiply per pixel, fused by XLA into whatever consumes the

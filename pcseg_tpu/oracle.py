@@ -1,15 +1,15 @@
 """Sequential NumPy oracle of the reference C++ semantics.
 
-This module is a *validation harness*, not the TPU compute path: it mirrors,
-step for step, the pointer-chasing algorithms of
-``theteamatx/x-edr-pointcloud-segmentation`` (mounted at /root/reference) so
-the TPU kernels in :mod:`pcseg_tpu.ops` / :mod:`pcseg_tpu.models` can be
+This module is a *validation harness*, not the device compute path: it
+mirrors, step for step, the pointer-chasing algorithms of
+``theteamatx/x-edr-pointcloud-segmentation`` so
+the device kernels in :mod:`pcseg_tpu.ops` / :mod:`pcseg_tpu.models` can be
 checked for per-point label agreement on arbitrary synthetic clouds — the
 BASELINE.json north-star metric — without building the C++ (its bazel deps
 are unreachable offline). It also serves as the single-core CPU reference
 for benchmark speedups.
 
-Faithfulness notes (all file:line into /root/reference/pointcloud_segmentation):
+Faithfulness notes (all file:line into pointcloud_segmentation):
   * Grids are stored [H, W, ...] numpy arrays; linear indices follow the
     reference's col-major convention ``idx = col * rows + row``
     (cloud.h:37-41).

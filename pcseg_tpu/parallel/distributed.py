@@ -3,9 +3,9 @@
 The reference is single-threaded C++ with no distributed story (SURVEY.md
 §5); this is the rebuild's novel mandate: the same column-sharded
 segmentation step (parallel/sharded.py) running over a mesh that spans
-*processes* (hosts), with halos riding ICI within a slice and DCN across
-hosts — all through the standard JAX runtime (jax.distributed + global
-jax.Array), no custom transport.
+*processes* (hosts), with halos riding the device interconnect within a
+host and the network across hosts — all through the standard JAX runtime
+(jax.distributed + global jax.Array), no custom transport.
 
 Usage on each host of an N-host job::
 
@@ -15,11 +15,11 @@ Usage on each host of an N-host job::
     step = sharded.build_sharded_segment_step(mesh)
     pts_g = distributed.host_local_to_global(mesh, P(None, "space", None),
                                              pts_local_cols)
-    out = step(pts_g, origin)                 # halos cross hosts via DCN
+    out = step(pts_g, origin)                 # halos cross hosts
 
 Tested with a 2-process CPU job over localhost (tests/test_multihost.py) —
 the standard JAX trick for validating process-spanning meshes without a
-pod (SURVEY.md §4).
+cluster (SURVEY.md §4).
 """
 
 from __future__ import annotations
@@ -38,9 +38,9 @@ def initialize(coordinator_address: Optional[str] = None,
     """Bring up the multi-process JAX runtime (idempotent).
 
     Arguments default from the standard env vars (JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID); on TPU pods all three are inferred
-    from the TPU metadata by jax.distributed. Returns True when running
-    multi-process after the call.
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID); on GPU hosts nothing infers them,
+    so pass all three (the coordinator may be ``localhost:<port>``).
+    Returns True when running multi-process after the call.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
@@ -51,8 +51,7 @@ def initialize(coordinator_address: Optional[str] = None,
         env = os.environ.get("JAX_PROCESS_ID")
         process_id = int(env) if env else None
     if coordinator_address is None and num_processes is None:
-        # single-process run (or TPU-pod auto-config): try the no-arg init
-        # only when the platform supports it, else stay single-process
+        # single-process run: nothing to bring up
         return False
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,

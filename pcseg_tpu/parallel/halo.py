@@ -3,8 +3,9 @@
 The cloud grid [H, W] is sharded over columns across a 1-D mesh axis; every
 windowed op (normal scans, seed windows, region dilation, cluster linking)
 needs a ring of neighbor columns. ``exchange_halo`` pads each local block
-with its neighbors' edge columns via two ``ppermute`` shifts over ICI —
-the TPU-native replacement for the reference's pointer-chasing adjacency
+with its neighbors' edge columns via two ``ppermute`` shifts over the
+device interconnect (NVLink between the cards of one GPU host) — the
+data-parallel replacement for the reference's pointer-chasing adjacency
 (SURVEY.md §5 long-context/SP analogue).
 
 All functions must be called inside ``shard_map`` with the given axis name.

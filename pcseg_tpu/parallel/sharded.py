@@ -1,9 +1,10 @@
-"""Spatially-sharded segmentation over a TPU device mesh.
+"""Spatially-sharded segmentation over a device mesh.
 
 The reference is single-threaded C++ with no distributed story (SURVEY.md
-§5); this module is the pod-scale design: the organized grid [H, W] is
+§5); this module is the multi-device design: the organized grid [H, W] is
 sharded over **columns** across a 1-D mesh axis ("space"), every windowed op
-exchanges halo rings over ICI (``ppermute``), plane-fit moments merge with
+exchanges halo rings with its neighbors (``ppermute``; NVLink between the
+cards of one GPU host), plane-fit moments merge with
 ``psum`` (exact — the estimator's merge algebra is addition,
 plane_estimator.cc:128-133), and cluster label unification runs local
 min-propagation plus global pointer jumping. An optional "data" mesh axis

@@ -1,7 +1,7 @@
 """Point-cloud data model: dense [H, W] grids as a JAX pytree.
 
-TPU-native replacement for the reference's Cloud/CloudBuffer/CloudView grid
-(/root/reference/pointcloud_segmentation/cloud.h:75-256) and the 8-channel
+Array-native replacement for the reference's Cloud/CloudBuffer/CloudView grid
+(pointcloud_segmentation/cloud.h:75-256) and the 8-channel
 MultichannelCloud (multichannel_cloud.h:61-84, multichannel_cloud.cc:98-107).
 
 Canonical layout: every channel is a row-major ``[H, W, C]`` (or ``[H, W]``)

@@ -4,7 +4,7 @@ The reference memory-maps typed CloudViews directly onto the proto's
 repeated-float fields (multichannel_cloud.cc:70-107, cloud_proto_utils.h);
 its storage order is therefore the cloud's col-major linearization
 (``value[(col*rows + row)*C + c]``). This module serializes/deserializes the
-TPU PointCloud to that layout so payloads interoperate with the reference's
+device PointCloud to that layout so payloads interoperate with the reference's
 channel fields (field numbers match, see protos/pcseg.proto).
 """
 

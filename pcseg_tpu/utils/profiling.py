@@ -1,9 +1,9 @@
 """Tracing / profiling helpers (SURVEY.md §5 observability).
 
 The reference has only google-benchmark micro-benchmarks compiled into its
-tests; the TPU rebuild exposes:
+tests; the rebuild exposes:
   * ``stage(name)`` — a jax named-scope + profiler annotation so each
-    pipeline stage shows up in TPU traces;
+    pipeline stage shows up in device traces;
   * ``Timer`` — wall-clock stage timing with forced host sync (results are
     device arrays; remote execution environments can report async dispatch
     as instant, so we sync through a transfer);

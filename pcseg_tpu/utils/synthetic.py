@@ -123,3 +123,15 @@ def synthetic_cluttered_room_cloud(rows=120, cols=160, f=120.0, seed=0,
         holes = rng.random((rows, cols)) < 0.02
         pts[holes] = np.nan
     return pts, np.zeros(3, np.float32)
+
+
+def synthetic_blob_cloud(points_per_blob=250_000, seed=0):
+    """Unorganized [N, 3] float32 cloud of four Gaussian blobs (sigma 0.4 m)
+    centred 30-57 m apart on the z=0 plane — the ~1M-point cloud of
+    BASELINE config 3 at the default size."""
+    rng = np.random.default_rng(seed)
+    centres = np.array([[0, 0, 0], [30, 0, 0], [0, 35, 0], [40, 40, 0]],
+                       np.float32)
+    return np.concatenate([
+        c + rng.normal(0, 0.4, (points_per_blob, 3)).astype(np.float32)
+        for c in centres])

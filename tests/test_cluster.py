@@ -1,8 +1,9 @@
-"""Cluster segmentation: TPU CCL path vs golden fixture and oracle."""
+"""Cluster segmentation: device CCL path vs golden fixture and oracle."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from pcseg_tpu.models.config import UNLABELED, ClusterRegionConfig
 from pcseg_tpu.models import cluster
@@ -10,7 +11,7 @@ from pcseg_tpu import oracle
 from tests import fixtures
 
 
-def run_tpu(points, seeds, config=ClusterRegionConfig(), offset=0,
+def run_device(points, seeds, config=ClusterRegionConfig(), offset=0,
             labels=None):
     h, w = points.shape[:2]
     if labels is None:
@@ -38,7 +39,7 @@ class TestGoldenFixture:
     def test_exact_labels_and_sizes(self):
         points = fixtures.clustering_fixture_cloud()
         seeds = fixtures.clustering_fixture_seeds()
-        res = run_tpu(points, seeds, offset=1)
+        res = run_device(points, seeds, offset=1)
         np.testing.assert_array_equal(
             np.asarray(res.labels), fixtures.CLUSTERING_EXPECTED_LABELS)
         assert int(res.num_regions) == 6
@@ -50,7 +51,7 @@ class TestGoldenFixture:
 class TestOracleParity:
     def _agree(self, points, seeds, config=ClusterRegionConfig(), offset=0,
                labels=None):
-        res = run_tpu(points, seeds, config, offset,
+        res = run_device(points, seeds, config, offset,
                       None if labels is None else labels)
         want, regions = run_oracle(points, seeds, config, offset, labels)
         got = np.asarray(res.labels)
@@ -132,32 +133,101 @@ class TestCanonicalFastPath:
                                       np.asarray(b.region_sizes))
 
 
-class TestPallasCCL:
-    def test_matches_xla_fixed_point(self):
-        """The in-VMEM Pallas CCL kernel must reach the same fixed point as
-        the XLA scan formulation (interpret mode on CPU)."""
+def _union_find_roots(pts, eligible, thr, half_window):
+    """NumPy reference for gated CCL: union-find over every window edge
+    whose endpoints are eligible and closer than sqrt(thr); each eligible
+    cell's label is the minimum col-major index of its component, and
+    ineligible cells get H*W."""
+    h, w = eligible.shape
+    parent = np.arange(h * w)
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    for c in range(w):
+        for r in range(h):
+            if not eligible[r, c]:
+                continue
+            for dc in range(-half_window, half_window + 1):
+                for dr in range(-half_window, half_window + 1):
+                    rr, cc = r + dr, c + dc
+                    if ((dr, dc) == (0, 0) or not (0 <= rr < h and 0 <= cc < w)
+                            or not eligible[rr, cc]):
+                        continue
+                    d = pts[r, c].astype(np.float64) - pts[rr, cc]
+                    if float(np.float32(np.sum(np.square(
+                            d.astype(np.float32))))) < thr:
+                        a, b = find(c * h + r), find(cc * h + rr)
+                        parent[max(a, b)] = min(a, b)
+    out = np.full((h, w), h * w, np.int64)
+    for c in range(w):
+        for r in range(h):
+            if eligible[r, c]:
+                out[r, c] = find(c * h + r)
+    return out
+
+
+class TestConnectivity:
+    @pytest.mark.parametrize("kind", ["or", "min"])
+    def test_hs_seg_scan_matches_associative_scan(self, kind):
+        """The Hillis-Steele segmented scan (the branch GPUs take) must
+        equal the associative_scan branch (the CPU's) for both monoids,
+        both axes and both directions."""
         from pcseg_tpu.ops import connectivity
-        rng = np.random.default_rng(13)
-        h, w = 48, 64
+        rng = np.random.default_rng(17)
+        h, w = 37, 53
+        blocked = rng.random((h, w)) < 0.2
+        if kind == "or":
+            v = rng.random((h, w)) < 0.1
+            identity = False
+
+            def op(a, b):
+                return a | b
+        else:
+            v = rng.integers(0, 1000, (h, w)).astype(np.int32)
+            identity = 1 << 30
+
+            def op(a, b):
+                return jnp.minimum(a, b)
+
+        def combine(a, b):
+            av, ar = a
+            bv, br = b
+            return jnp.where(br, bv, op(av, bv)), ar | br
+
+        for axis in (0, 1):
+            for reverse in (False, True):
+                want, _ = jax.lax.associative_scan(
+                    combine, (jnp.asarray(v), jnp.asarray(blocked)),
+                    axis=axis, reverse=reverse)
+                got = connectivity._hs_seg_scan(
+                    jnp.asarray(v), jnp.asarray(blocked), axis, reverse,
+                    kind, identity)
+                np.testing.assert_array_equal(np.asarray(got),
+                                              np.asarray(want))
+
+    @pytest.mark.parametrize("half_window", [1, 2])
+    def test_scan_ccl_matches_union_find(self, half_window):
+        """connected_components_scan on a NaN-holed cloud must reach the
+        union-find components (min col-major root per component)."""
+        from pcseg_tpu.ops import connectivity
+        rng = np.random.default_rng(13 + half_window)
+        h, w = 40, 56
         pts = rng.uniform(-4, 4, (h, w, 3)).astype(np.float32)
         pts[8:20, 8:30] = rng.normal(0, 0.08, (12, 22, 3)).astype(np.float32)
-        pts[rng.random((h, w)) < 0.04] = np.nan
-        elig = np.isfinite(pts).all(-1) & (rng.random((h, w)) < 0.9)
+        pts[25:38, 30:50] = np.float32([2, 2, 0]) + rng.normal(
+            0, 0.3, (13, 20, 3)).astype(np.float32)
+        pts[rng.random((h, w)) < 0.05] = np.nan
+        elig = np.isfinite(pts).all(-1) & (rng.random((h, w)) < 0.95)
         thr = np.float32(1.0)
-        offsets = [(dr, dc) for dc in (-1, 0, 1) for dr in (-1, 0, 1)
-                   if (dr, dc) != (0, 0)]
-
-        want = connectivity.connected_components_scan(
-            jnp.asarray(pts), jnp.asarray(elig), thr, 1, rounds=64)
-
-        init = connectivity.colmajor_index_grid(h, w)
-        labels0 = jnp.where(jnp.asarray(elig), init, jnp.int32(h * w))
-        gate = connectivity._gate_bits(
-            jnp.asarray(pts), jnp.asarray(elig), thr, offsets)
-        got = jax.jit(lambda g, l: connectivity._ccl_pallas(
-            g, l, offsets, 64, h * w, interpret=True))(gate, labels0)
-        got = jnp.where(jnp.asarray(elig), got, jnp.int32(h * w))
-        np.testing.assert_array_equal(np.asarray(want), np.asarray(got))
+        got = connectivity.connected_components_scan(
+            jnp.asarray(pts), jnp.asarray(elig), thr, half_window,
+            rounds=h * w)
+        np.testing.assert_array_equal(
+            np.asarray(got), _union_find_roots(pts, elig, thr, half_window))
 
 
 class TestFastAcceptanceTail:

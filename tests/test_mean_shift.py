@@ -87,18 +87,18 @@ class TestSlidingMeanShiftEndToEnd:
         h, w = pts.shape[:2]
         cfg = ClusterRegionConfig()
 
-        labels_tpu = np.full((h, w), UNLABELED, np.int32)
-        regions_tpu = mean_shift.sliding_mean_shift(
-            pts, labels_tpu, cfg, iterations=5, initial_region_id_offset=1)
+        labels_dev = np.full((h, w), UNLABELED, np.int32)
+        regions_dev = mean_shift.sliding_mean_shift(
+            pts, labels_dev, cfg, iterations=5, initial_region_id_offset=1)
 
         labels_oracle = np.full((h, w), UNLABELED, np.int32)
         regions_oracle = oracle.sliding_mean_shift(
             pts, cfg, 5, 1, labels_oracle)
 
-        agreement = (labels_tpu == labels_oracle).mean()
+        agreement = (labels_dev == labels_oracle).mean()
         assert agreement >= 0.99, agreement
-        assert len(regions_tpu) == len(regions_oracle)
-        for a, b in zip(regions_tpu, regions_oracle):
+        assert len(regions_dev) == len(regions_oracle)
+        for a, b in zip(regions_dev, regions_oracle):
             assert a.label_id == b.label_id
             assert len(a.inlier_indices) == len(b.inlier_indices)
 

@@ -1,4 +1,4 @@
-"""TPU normals op vs the sequential oracle (per-pixel parity)."""
+"""Device normals op vs the sequential oracle (per-pixel parity)."""
 
 import numpy as np
 import jax

@@ -1,6 +1,6 @@
 """Validate the NumPy oracle against goldens ported from the C++ tests.
 
-These tests pin the oracle itself to the reference's behavior; the TPU path
+These tests pin the oracle itself to the reference's behavior; the device path
 is then validated against the oracle on larger random clouds.
 """
 

@@ -18,7 +18,7 @@ def _scene(n=40, seed=2):
     return pts, normals
 
 
-def run_tpu(points, normals, config=None, offset=0,
+def run_device(points, normals, config=None, offset=0,
             seed_params=SeedsFromPlaneSupportParams()):
     import dataclasses
     if config is None:
@@ -55,7 +55,7 @@ def run_oracle(points, normals, config=PlanarRegionConfig(), offset=0,
 class TestPlanarParity:
     def test_room_scene(self):
         pts, normals = _scene(40)
-        got_labels, records, dev = run_tpu(pts, normals)
+        got_labels, records, dev = run_device(pts, normals)
         want_labels, want_regions = run_oracle(pts, normals)
 
         agreement = (got_labels == want_labels).mean()
@@ -75,7 +75,7 @@ class TestPlanarParity:
                                             step=0.1)
         normals = oracle.compute_normals_organized(
             pts, np.array([0, 0, 5.0], np.float32))
-        got_labels, records, dev = run_tpu(pts, normals)
+        got_labels, records, dev = run_device(pts, normals)
         want_labels, want_regions = run_oracle(pts, normals)
         assert int(dev.num_regions) == 1  # grown, then host-rejected
         assert len(records) == len(want_regions) == 0
@@ -87,7 +87,7 @@ class TestPlanarParity:
             20, 20, normal=(0, 0, 1), d=1.0, step=0.1)
         normals = oracle.compute_normals_organized(
             pts, np.array([0, 0, 5.0], np.float32))
-        got_labels, records, dev = run_tpu(pts, normals)
+        got_labels, records, dev = run_device(pts, normals)
         want_labels, want_regions = run_oracle(pts, normals)
         assert len(records) == len(want_regions) == 1
         agreement = (got_labels == want_labels).mean()
@@ -113,7 +113,7 @@ class TestPlanarParity:
         pts[4:10, 4:10] = patch
         normals = oracle.compute_normals_organized(
             pts, np.array([0, 0, 5.0], np.float32))
-        got_labels, records, dev = run_tpu(pts, normals)
+        got_labels, records, dev = run_device(pts, normals)
         want_labels, want_regions = run_oracle(pts, normals)
         assert len(records) == len(want_regions)
         agreement = (got_labels == want_labels).mean()

@@ -1,4 +1,4 @@
-"""Seed finders: TPU dense ops vs the sequential oracle."""
+"""Seed finders: device dense ops vs the sequential oracle."""
 
 import numpy as np
 import jax
